@@ -1,9 +1,8 @@
-"""ebcc_tpu — a TPU-native error-bounded climate-data compressor.
+"""ebcc_tpu — an error-bounded climate-data compressor in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of spcl/EBCC
-(reference mounted read-only at /root/reference): a two-layer
-(base + residual) error-bounded lossy compressor for batches of 2-D float32
-climate frames, with MAX_ERROR / RELATIVE_ERROR / NONE bound modes, chunked
+A from-scratch JAX/XLA framework with the capabilities of spcl/EBCC: a
+two-layer (base + residual) error-bounded lossy compressor for batches of
+2-D float32 climate frames, with MAX_ERROR / RELATIVE_ERROR / NONE bound modes, chunked
 self-describing containers, HDF5/Zarr/CLI integration, and multi-chip
 scale-out over a `jax.sharding.Mesh`.
 

@@ -3,8 +3,8 @@
 Parity: the reference's ``python ebcc/filter_wrapper.py`` CLI
 (filter_wrapper.py:70-115) which prints an HDF5 filter spec string
 ``"<id>,<h>,<w>,<base_cr bits>,<mode>[,<err bits>]"`` consumable by
-``cdo --filter`` / netCDF tooling (README.md:63-78), plus TPU-build
-extensions: direct file compression/decompression subcommands.
+``cdo --filter`` / netCDF tooling (README.md:63-78), plus extensions
+beyond the reference: direct file compression/decompression subcommands.
 
 Usage:
   python -m ebcc_tpu.api.cli spec  -b 200 -H 721 -W 1440 -r 0.01 [--help-cdo]
@@ -33,10 +33,10 @@ def _add_spec_args(p):
                    help="relative error target")
     p.add_argument("-p", "--pointwise_relative_error_target", default=None,
                    type=float,
-                   help="pointwise relative error target (TPU-build "
-                        "extension; strictly positive data)")
+                   help="pointwise relative error target (extension; "
+                        "strictly positive data)")
     p.add_argument("--lossless", action="store_true",
-                   help="bit-exact spec (TPU-build extension)")
+                   help="bit-exact spec (extension)")
     p.add_argument("--help-cdo", action="store_true", help="print CDO help")
 
 
@@ -195,6 +195,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.cmd == "spec":
         return _spec_main(args)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cmd == "compress":
         return _compress_main(args)
     return _decompress_main(args)

@@ -47,7 +47,7 @@ _MODE_BY_NAME = {
     "none": cfg.RESIDUAL_NONE,
     "max_error_target": cfg.RESIDUAL_MAX_ERROR,
     "relative_error_target": cfg.RESIDUAL_RELATIVE_ERROR,
-    # TPU-build extensions (the reference enum stops at relative):
+    # Extensions (the reference enum stops at relative):
     # |x̂-x| <= err*|x| pointwise (strictly positive data only), and
     # bit-exact lossless (no error value).
     "pointwise_relative_error_target": cfg.RESIDUAL_POINTWISE_RELATIVE_ERROR,
@@ -57,7 +57,7 @@ _MODE_BY_NAME = {
 # Modes that carry no error value in cd_values.
 _NO_ERROR_MODES = (cfg.RESIDUAL_NONE, cfg.RESIDUAL_LOSSLESS)
 
-# cd_values[5] flags word (TPU-build extension; absent = 0 keeps the
+# cd_values[5] flags word (extension; absent = 0 keeps the
 # reference's 4/5-value layouts valid).
 FLAGS_TEMPORAL = 0x1
 FLAGS_ALLOW_NAN = 0x2
@@ -73,12 +73,12 @@ class EBCC_Filter(Mapping):
                  residual_opt: Optional[Tuple[str, float]],
                  data_dim: int = 2, temporal_chunk: int = 0,
                  allow_nan: bool = False):
-        """``temporal_chunk`` (TPU-build extension, no reference
+        """``temporal_chunk`` (extension, no reference
         counterpart): >1 makes each HDF5 chunk span that many leading-dim
         frames coded with closed-loop temporal prediction (requires an
         error-bounded ``residual_opt``; see config.CodecConfig.temporal).
 
-        ``allow_nan`` (TPU-build extension): accept NaN samples — they are
+        ``allow_nan`` (extension): accept NaN samples — they are
         masked out of the encode and restored on decode; the error bound
         applies to the valid samples (see config.CodecConfig.allow_nan).
         The reference filter hard-exits on NaN input."""

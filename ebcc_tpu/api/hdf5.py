@@ -8,7 +8,7 @@ offers two routes:
 1. :func:`save_dataset` / :func:`load_dataset` — self-contained: the ETPK
    container is stored as an opaque byte dataset with shape/codec metadata
    in attributes.  Works with stock h5py, compresses through the batched
-   TPU codec, and round-trips without any plugin.
+   device codec, and round-trips without any plugin.
 2. The native filter plugin (``ebcc_tpu/native``; filter id 33030, built by
    the CMake project there) — registered through ``HDF5_PLUGIN_PATH`` just
    like the reference, decoding ETPU/ETPK payloads inside the HDF5 pipeline

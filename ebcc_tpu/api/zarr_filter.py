@@ -4,7 +4,7 @@ API parity: reference ``ebcc/zarr_filter.py`` — ``EBCCZarrFilter(Codec)``
 with codec_id "ebcc_filter", constructed from the same uint32 ``arglist``
 (cd_values) vocabulary, encode/decode of raveled float32 buffers, and
 numcodecs registration (zf.py:19-88).  The reference reaches the C codec via
-ctypes; here encode/decode run through the batched TPU codec.
+ctypes; here encode/decode run through the batched device codec.
 
 Gated: ``numcodecs`` is optional.  When absent, a minimal stand-in base class
 keeps the codec usable directly (``encode``/``decode``/``get_config``) —

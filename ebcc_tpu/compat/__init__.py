@@ -11,7 +11,7 @@ this framework (and produce archives the reference plugin can read), using:
   interoperable;
 - the native SPIHT mirror (native/spiht_coder.cc) for the residual layer.
 
-This is an interop/validation surface, not the TPU hot path; the ETPU
+This is an interop/validation surface, not the device hot path; the ETPU
 format (core/stream.py, docs/FORMAT.md) remains the native format.
 """
 

@@ -13,12 +13,12 @@ here) plus the env-var overrides the reference reads per encode call
   * ``EBCC_DISABLE_MEAN_ADJUSTMENT`` — disable folding the mean error into
     the stored min/max.
   * ``EBCC_DISABLE_PURE_BASE_COMPRESSION_FALLBACK_CONSISTENCY`` — accepted
-    for CLI/env parity; a no-op here (the TPU build's scan-based search has
+    for CLI/env parity; a no-op here (this codec's scan-based search has
     no re-encode step whose determinism would need pinning, cf. reference
     ebcc_codec.c:828-835).
   * ``EBCC_LOG_LEVEL`` — 0..5 (TRACE..FATAL), see ``ebcc_tpu.utils.logging``.
 
-TPU-build extensions (not in the reference): wavelet depths per layer,
+Extensions (not in the reference): wavelet depths per layer,
 entropy backend level, and the internal bitplane counts.
 """
 
@@ -108,7 +108,7 @@ class CodecConfig:
     error: float = 0.0
     chunk_dims: Tuple[int, int, int] = (0, 0, 0)
 
-    # TPU-build knobs.
+    # Knobs beyond the reference.
     base_levels: int = 5
     residual_levels: int = 3
     zstd_level: int = 9

@@ -2,15 +2,18 @@
 
 Role parity: the reference backends are (a) OpenJPEG's EBCOT/MQ arithmetic
 coder inside the J2K base codestream and (b) zstd level 22 over the SPIHT
-residual bytes (reference ``src/ebcc_codec.c:813-817, 1301``).  In the TPU
-build all entropy coding is host-side (accelerators don't entropy-code), is
+residual bytes (reference ``src/ebcc_codec.c:813-817, 1301``).  Here all
+entropy coding is host-side (accelerators don't entropy-code), is
 applied to the device-produced dense bitplane payloads of BOTH layers, and is
 pluggable: a backend id byte is recorded in every stream header so formats
 can evolve (zstd today, the native context-modeling coder as it lands).
 
 zstd notes: level is configurable (default well below the reference's 22 —
 level 22 costs ~100x encode time for a few % on these structured bitmask
-payloads; the bench sweeps this trade-off).
+payloads; the bench sweeps this trade-off).  zstd frames come from the
+``zstandard`` package when it is installed, and otherwise from the system
+libzstd through the native library: the frame format is the same either
+way.  Without either, asking for zstd raises — it never degrades to STORE.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from ..utils.logging import logger
 
 try:
     import zstandard as _zstd
-except ImportError:  # pragma: no cover - zstd is expected in the image
+except ImportError:
     _zstd = None
+    logger.warning("zstandard not installed: zstd (entropy id 1) runs "
+                   "through the native library's libzstd")
 
 BACKEND_STORE = 0
 BACKEND_ZSTD = 1
@@ -36,13 +41,15 @@ def compress(data: bytes, backend: int = BACKEND_ZSTD, level: int = 9,
              threads: int = 0, meta=None) -> bytes:
     """``meta`` = (kept, d0, hp, wp, levels), required by the CAB backend
     (its context model walks the payload's plane structure)."""
-    if backend == BACKEND_STORE or (backend == BACKEND_ZSTD and _zstd is None):
-        if backend != BACKEND_STORE and _zstd is None:
-            logger.warning("zstandard unavailable; storing uncompressed")
+    if backend == BACKEND_STORE:
         return bytes(data)
     if backend == BACKEND_ZSTD:
-        # write_checksum: a flipped payload byte must fail loudly at decode,
-        # not silently reconstruct garbage (robust-decoder posture).
+        # Checksummed frames: a flipped payload byte must fail loudly at
+        # decode, not silently reconstruct garbage (robust-decoder posture).
+        if _zstd is None:
+            from .. import native
+
+            return native.zstd_compress(bytes(data), level)
         cctx = _zstd.ZstdCompressor(level=level, threads=threads,
                                     write_checksum=True)
         return cctx.compress(data)
@@ -62,7 +69,9 @@ def decompress(data: bytes, backend: int, orig_size: int, meta=None) -> bytes:
         return bytes(data)
     if backend == BACKEND_ZSTD:
         if _zstd is None:
-            raise RuntimeError("zstandard required to decode this stream")
+            from .. import native
+
+            return native.zstd_decompress(bytes(data), orig_size)
         dctx = _zstd.ZstdDecompressor()
         try:
             return dctx.decompress(data, max_output_size=orig_size)
@@ -79,10 +88,6 @@ def decompress(data: bytes, backend: int, orig_size: int, meta=None) -> bytes:
     raise ValueError(f"unknown entropy backend {backend}")
 
 
-def default_backend() -> int:
-    return BACKEND_ZSTD if _zstd is not None else BACKEND_STORE
-
-
 def backend_id(config) -> int:
     """Resolve a CodecConfig's entropy backend to its (pseudo-)id."""
     name = getattr(config, "entropy_backend", "zstd")
@@ -92,7 +97,7 @@ def backend_id(config) -> int:
         return BACKEND_NATIVE_CAB2
     if name == "auto":
         return BACKEND_AUTO
-    return default_backend()
+    return BACKEND_ZSTD
 
 
 def compress_best(data: bytes, backend: int, level: int, meta):
@@ -100,12 +105,9 @@ def compress_best(data: bytes, backend: int, level: int, meta):
     both real backends and keep the smaller."""
     if backend != BACKEND_AUTO:
         return compress(data, backend, level, meta=meta), backend
-    # Without zstandard, compress() stores raw — the stream header must then
-    # say STORE, not ZSTD, or the stream is undecodable.
-    zbk = default_backend()
-    z = compress(data, zbk, level)
+    z = compress(data, BACKEND_ZSTD, level)
     try:
         c = compress(data, BACKEND_NATIVE_CAB, level, meta=meta)
     except Exception:
-        return z, zbk
-    return (c, BACKEND_NATIVE_CAB) if len(c) < len(z) else (z, zbk)
+        return z, BACKEND_ZSTD
+    return (c, BACKEND_NATIVE_CAB) if len(c) < len(z) else (z, BACKEND_ZSTD)

@@ -44,7 +44,7 @@ import jax.numpy as jnp
 
 from ..config import (BASE_NUM_PLANES, BASE_REFINE_ITERS, DELTA_NUM_PLANES,
                       RES_NUM_PLANES, RES_REFINE_RATIOS, RES_SCALE_STEPS)
-from ..ops import bitplane, dwt, dwt_pallas, metrics
+from ..ops import bitplane, dwt, metrics
 from . import transfer
 
 BASE_SCALE = 65535.0
@@ -53,7 +53,11 @@ RES_SCALE = 255.0
 # Normative inter-decoder divergence allowance (docs/FORMAT.md "Decoder
 # conformance"): conforming decoders may differ from the reference
 # reconstruction sequence by at most this fraction of the chunk range
-# (measured across this repo's JAX CPU/TPU and C++ decoders: <= 2.8e-6).
+# (measured against the C++ decoder on 100 generated 721x1440 frames at
+# abs 0.5: JAX on the CPU 3.0e-6, JAX on an H100 3.6e-6, chip_smoke.py
+# phase c; on the H100 the relative, temporal, masked, pointwise-relative,
+# lossless and rate modes stay at or under 0.89 of their allowance,
+# phase d).
 # Encoders verify feasibility at target minus this allowance so the shipped
 # bound holds for every conforming decoder pairing.  The C++ encoder mirrors
 # it (etpu_codec.cc kDecoderEpsRel).
@@ -65,7 +69,7 @@ def _pad2d(x, multiple):
 
 
 def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
-                        use_pallas, step: int = 3, curve_fn=None):
+                        step: int = 3):
     """Coarse-to-fine cut search: evaluate a strided coarse grid of cuts
     once, then refine ``step - 1`` candidates above each criterion's
     coarsest feasible coarse cut.  ~half the inverse-DWT evaluations of the
@@ -76,14 +80,6 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
     metrics_fn(spatial, cut_vec) -> tuple of (B,) metric arrays.
     criteria: list of fns mapping that tuple (stacked or single) to a
     feasibility boolean (broadcasts over a leading axis when stacked).
-    curve_fn (optional): fn(static cut grid) -> the same stacked metric
-    tuple for the WHOLE grid in one fused device pass
-    (ops.dwt_pallas.curve_stats_pallas) — replaces the per-cut lax.map
-    coarse sweep; refinement evaluations keep the per-cut path.  The max
-    statistics it yields are bit-equal to the per-cut path (max is
-    order-independent and the in-kernel reconstruction is the same code);
-    the mean can differ in the last ulp, which only steers the adjustment
-    value this same program verifies against.
     Returns ``(per_criterion, coarse, coarse_cuts)`` where per_criterion is
     a list of (cut (B,), feasible_any (B,), metrics tuple at the chosen
     cut), ``coarse`` the stacked (n_coarse, B) metric tuple and
@@ -98,15 +94,13 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
     cc_dev = jnp.asarray(cc)
 
     def eval_vec(cut_vec):
-        spatial = dwt_pallas.idwt2d_dequant(q, cut_vec, levels,
-                                            use_pallas=use_pallas)
-        return metrics_fn(spatial, cut_vec)
+        # Stable scope names: the profiler trace is attributed by them.
+        with jax.named_scope("cut_search_eval"):
+            spatial = dwt.idwt2d_dequant(q, cut_vec, levels)
+            return metrics_fn(spatial, cut_vec)
 
-    if curve_fn is not None:
-        coarse = curve_fn(tuple(int(c) for c in cc))
-    else:
-        coarse = jax.lax.map(
-            lambda c: eval_vec(jnp.broadcast_to(c, (b,))), cc_dev)
+    coarse = jax.lax.map(
+        lambda c: eval_vec(jnp.broadcast_to(c, (b,))), cc_dev)
 
     out = []
     for crit in criteria:
@@ -134,7 +128,7 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
 @functools.partial(
     jax.jit,
     static_argnames=("base_levels", "res_levels", "relative_mode",
-                     "use_centered", "use_pallas"),
+                     "use_centered"),
 )
 def encode_batch(
     x,                       # (B, D0, H, W) float32
@@ -145,7 +139,6 @@ def encode_batch(
     res_levels: int = 3,
     relative_mode: bool = False,
     use_centered: bool = True,
-    use_pallas: bool = True,
 ):
     """Full batched encode program.  Returns a dict of device arrays; all
     stream assembly happens on host (``ebcc_tpu.core.codec``).
@@ -154,14 +147,13 @@ def encode_batch(
     return _encode_core(
         x, minval, maxval, jnp.float32(0.0), error_target,
         base_quantile_target, base_levels=base_levels, res_levels=res_levels,
-        relative_mode=relative_mode, use_centered=use_centered,
-        use_pallas=use_pallas)
+        relative_mode=relative_mode, use_centered=use_centered)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("base_levels", "res_levels", "relative_mode",
-                     "use_centered", "use_pallas"),
+                     "use_centered"),
 )
 def encode_batch_u16(
     xq,                      # (B, D0, H, W) uint16: round((x-min)/rng*65535)
@@ -173,7 +165,6 @@ def encode_batch_u16(
     res_levels: int = 3,
     relative_mode: bool = False,
     use_centered: bool = True,
-    use_pallas: bool = True,
 ):
     """Encode from a host-prequantized u16 batch (half the upload bytes of
     f32; see ``EBCC_U16_UPLOAD``).  The u16 grid adds at most
@@ -188,13 +179,12 @@ def encode_batch_u16(
     return _encode_core(
         x, minval, maxval, rngv / (2.0 * BASE_SCALE), error_target,
         base_quantile_target, base_levels=base_levels, res_levels=res_levels,
-        relative_mode=relative_mode, use_centered=use_centered,
-        use_pallas=use_pallas)
+        relative_mode=relative_mode, use_centered=use_centered)
 
 
 def _encode_core(
     x, minval, maxval, target_slack, error_target, base_quantile_target,
-    *, base_levels, res_levels, relative_mode, use_centered, use_pallas,
+    *, base_levels, res_levels, relative_mode, use_centered,
     return_internal: bool = False,
 ):
     b, d0, h, w = x.shape
@@ -234,18 +224,20 @@ def _encode_core(
     # arithmetic is bitwise identical no matter how chunks are batched);
     # batches below _MIN_ENCODE_BATCH are padded by the caller so the map
     # never degenerates into an inlined (differently-fused) singleton.
-    # On TPU the batched/Pallas formulation is kept: the wobble is a CPU
-    # codegen artifact (and the contract is validated on the CPU mesh);
-    # serializing per-chunk there would cost real device time.
+    # Other backends keep the batched formulation, which serializes
+    # nothing: on an H100 it gave streams byte-identical between the
+    # 4-chunk pipelined roundtrip and the 32-chunk sequential encode of 100
+    # frames (chip_smoke.py phase b; the ``gpu`` test in
+    # tests/test_chip_smoke.py).
     det = jax.default_backend() == "cpu"
 
-    # ---- base layer transform + quantize (fused Pallas on TPU) ----
-    if det:
-        qbase = jax.lax.map(
-            lambda u1: dwt_pallas.dwt2d_quantize(u1[None], base_levels,
-                                                 use_pallas)[0], up)
-    else:
-        qbase = dwt_pallas.dwt2d_quantize(up, base_levels, use_pallas)
+    # ---- base layer transform + quantize ----
+    with jax.named_scope("dwt_quantize"):
+        if det:
+            qbase = jax.lax.map(
+                lambda u1: dwt.dwt2d_quantize(u1[None], base_levels)[0], up)
+        else:
+            qbase = dwt.dwt2d_quantize(up, base_levels)
 
     scale_back = rng[:, None, None, None] / BASE_SCALE
     off = minval[:, None, None, None]
@@ -257,42 +249,6 @@ def _encode_core(
         q = metrics.error_quantile(x, recon, target)
         return maxe, q, m
 
-    # Fused curve sweep (round-3 VERDICT #7): on TPU the whole coarse
-    # error-vs-cut curve is computed in ONE Pallas pass per frame (frame
-    # resident in VMEM across all cuts) instead of one dispatch + 3 HBM
-    # frame trips per cut.  The statistics rows are associative partials;
-    # combining them here reproduces the metric tuples exactly (max/min/
-    # count are order-independent; the mean's reduction-order ulp only
-    # steers the adjustment this same program verifies).
-    n_pts = d0 * h * w
-    # Opt-in until Mosaic lowering is validated on real hardware (the
-    # interpret-mode contract test runs everywhere): EBCC_FUSED_CURVE=1.
-    import os as _os
-
-    use_curve = (use_pallas
-                 and _os.environ.get("EBCC_FUSED_CURVE", "0") == "1"
-                 and dwt_pallas.supported(qbase.shape, base_levels))
-
-    def _combine(stats):
-        s = stats[..., 0].sum(-1)
-        mx = stats[..., 1].max(-1)
-        mn = stats[..., 2].min(-1)
-        bad = stats[..., 3].sum(-1)
-        m = s / n_pts
-        maxe = (jnp.maximum(mx - m, m - mn) if use_centered
-                else jnp.maximum(mx, -mn))
-        return maxe, 1.0 - bad / n_pts, m
-
-    base_curve = None
-    if use_curve:
-        xpad, _ = _pad2d(x, mult)
-
-        def base_curve(cut_grid):
-            stats = dwt_pallas.curve_stats_pallas(
-                qbase, xpad, rng / BASE_SCALE, minval, target,
-                levels=base_levels, cut_grid=cut_grid, valid_hw=orig_hw)
-            return _combine(stats)
-
     # Coarse-to-fine search over cuts (12 iDWT evals instead of a dense 22;
     # feasibility is monotone in the cut and cut 0 sits on the coarse grid,
     # so feasibility-any and the none-feasible fallback match the dense
@@ -303,8 +259,7 @@ def _encode_core(
         base_coarse, _cc = _coarse_fine_search(
             qbase, BASE_NUM_PLANES, base_levels, base_metrics,
             [lambda m: m[1] >= base_quantile_target,
-             lambda m: m[0] <= target],
-            use_pallas, curve_fn=base_curve)
+             lambda m: m[0] <= target])
 
     base_sizes = bitplane.estimated_code_bytes(
         qbase.reshape(b, d0 * up.shape[-2], up.shape[-1]), BASE_NUM_PLANES)
@@ -315,13 +270,10 @@ def _encode_core(
     # continuously into the residual coefficients (byte determinism).
     if det:
         base_spatial = jax.lax.map(
-            lambda a: dwt_pallas.idwt2d_dequant(
-                a[0][None], a[1][None], base_levels,
-                use_pallas=use_pallas)[0], (qbase, base_cut))
+            lambda a: dwt.idwt2d_dequant(
+                a[0][None], a[1][None], base_levels)[0], (qbase, base_cut))
     else:
-        base_spatial = dwt_pallas.idwt2d_dequant(qbase, base_cut,
-                                                 base_levels,
-                                                 use_pallas=use_pallas)
+        base_spatial = dwt.idwt2d_dequant(qbase, base_cut, base_levels)
     base_recon = dwt.unpad(base_spatial, orig_hw) * scale_back + off
     base_err = x - base_recon
     base_maxerr = metrics.max_abs_error(x, base_recon)
@@ -347,7 +299,6 @@ def _encode_core(
     else:
         yres = dwt.dwt2d(rnp_, res_levels)
     res_off = rmin[:, None, None, None]
-    res_pad = _pad2d(residual, mult)[0] if use_curve else None
 
     def residual_sweep(yres):
         maxe_list, mean_list, cut_list, feas_list, est_list = [], [], [], [], []
@@ -370,24 +321,9 @@ def _encode_core(
                         else metrics.max_abs_error(x, recon))
                 return maxe, m
 
-            res_curve = None
-            if use_curve:
-                # err = x - (base_recon + spatial*sb + rmin)
-                #     = base_err - (spatial*sb + rmin): same fused kernel
-                # with the residual as the target frame.
-                sb_v = (rmax_adj - rmin) / RES_SCALE
-
-                def res_curve(cut_grid, q_f=q_f, sb_v=sb_v):
-                    stats = dwt_pallas.curve_stats_pallas(
-                        q_f, res_pad, sb_v, rmin, target,
-                        levels=res_levels, cut_grid=cut_grid,
-                        valid_hw=orig_hw)
-                    maxe, _q, m = _combine(stats)
-                    return maxe, m
-
             [(cut_f, feas_f, (maxe_f, mean_f))], _, _ = _coarse_fine_search(
                 q_f, RES_NUM_PLANES, res_levels, res_metrics,
-                [lambda m: m[0] <= target], use_pallas, curve_fn=res_curve)
+                [lambda m: m[0] <= target])
             est_f = bitplane.estimated_code_bytes(
                 q_f.reshape(b, d0 * rnp_.shape[-2], rnp_.shape[-1]),
                 RES_NUM_PLANES)
@@ -439,7 +375,7 @@ def _encode_core(
         # regression fixed in round 5 for the base bisection; same hazard
         # here).  The map body compiles once at the per-chunk shape, so
         # the decision arithmetic is bitwise identical no matter how
-        # chunks are batched.  On TPU the same logic runs batched.
+        # chunks are batched.  Other backends run the same logic batched.
 
         def _refine_res_one(args):
             (y1, x1, brec1, f1, cut1, anyf1, rmin1, rrng1, maxe1, mean1,
@@ -452,9 +388,8 @@ def _encode_core(
                 q_r = bitplane.quantize_floor(y1 * f_r)
                 rmax_r = (rmin1 + rrng1 / f_r).astype(jnp.float32)
                 sb_r = (rmax_r - rmin1) / RES_SCALE
-                spatial_r = dwt_pallas.idwt2d_dequant(
-                    q_r[None], cut1[None], res_levels,
-                    use_pallas=use_pallas)
+                spatial_r = dwt.idwt2d_dequant(q_r[None], cut1[None],
+                                               res_levels)
                 recon_r = brec1[None] + (dwt.unpad(spatial_r, orig_hw)
                                          * sb_r + rmin1)
                 maxe_c_r, mean_r = metrics.centered_max_abs_error(
@@ -485,7 +420,7 @@ def _encode_core(
                  sel(res_est_f), qres_sel, target))
             return (cut_sel, any_feas, best_maxe, best_mean, best_rmax,
                     best_est, best_q)
-        # Batched formulation (TPU): identical logic across the batch.
+        # Batched formulation (non-CPU): identical logic across the batch.
         best_maxe, best_mean = sel(res_maxe_f), sel(res_mean_f)
         best_rmax, best_est = sel(rmax_adj_f), sel(res_est_f)
         best_q = qres_sel
@@ -495,8 +430,7 @@ def _encode_core(
             q_r = bitplane.quantize_floor(yres * f_r[:, None, None, None])
             rmax_r = (rmin + rrng / f_r).astype(jnp.float32)
             sb_r = (rmax_r - rmin)[:, None, None, None] / RES_SCALE
-            spatial_r = dwt_pallas.idwt2d_dequant(
-                q_r, cut_sel, res_levels, use_pallas=use_pallas)
+            spatial_r = dwt.idwt2d_dequant(q_r, cut_sel, res_levels)
             recon_r = base_recon + (dwt.unpad(spatial_r, orig_hw) * sb_r
                                     + res_off)
             maxe_c_r, mean_r = metrics.centered_max_abs_error(x, recon_r)
@@ -609,8 +543,7 @@ def _encode_core(
                         ).astype(jnp.float32)
             sb_g = (maxval_g - minv1) / BASE_SCALE
             recon_g = (dwt.unpad(
-                dwt_pallas.idwt2d_dequant(q_g[None], cut1[None], base_levels,
-                                          use_pallas=use_pallas),
+                dwt.idwt2d_dequant(q_g[None], cut1[None], base_levels),
                 orig_hw) * sb_g + minv1)
             maxe_c_g, mean_g = metrics.centered_max_abs_error(x4, recon_g)
             maxe_u_g = metrics.max_abs_error(x4, recon_g)
@@ -650,7 +583,7 @@ def _encode_core(
          pure_m0, pure_m2) = jax.lax.cond(refinable.any(), _refine_base_all,
                                           _refine_base_skip, refine_xs)
     else:
-        # Batched bisection (TPU): identical logic across the batch.
+        # Batched bisection (non-CPU): identical logic across the batch.
         cut4s = cut_ship_ref[:, None, None, None]
         vmag_f = (jnp.abs(qbase) >> cut4s).astype(jnp.float32)
         sgn_neg = qbase < 0
@@ -666,8 +599,7 @@ def _encode_core(
                         ).astype(jnp.float32)
             sb_g = ((maxval_g - minval) / BASE_SCALE)[:, None, None, None]
             recon_g = (dwt.unpad(
-                dwt_pallas.idwt2d_dequant(q_g, cut_ship_ref, base_levels,
-                                          use_pallas=use_pallas),
+                dwt.idwt2d_dequant(q_g, cut_ship_ref, base_levels),
                 orig_hw) * sb_g + off)
             maxe_c_g, mean_g = metrics.centered_max_abs_error(x, recon_g)
             maxe_u_g = metrics.max_abs_error(x, recon_g)
@@ -716,8 +648,8 @@ def _encode_core(
     # distributed test).  Recompute every host-visible metric per chunk
     # under ``lax.map`` from the SHIPPED integers — the body compiles once
     # at the per-chunk shape, so the values are bitwise identical no
-    # matter how chunks are batched.  TPU keeps the sweep-derived batched
-    # values (three transforms per chunk saved).
+    # matter how chunks are batched.  Other backends keep the
+    # sweep-derived batched values (three transforms per chunk saved).
     def _ship_metrics_one(args):
         (x1, qb1, bcut1, pcut1, minv1, rngs1, qr1, rcut1, rmin1,
          rmaxo1) = args
@@ -726,17 +658,14 @@ def _encode_core(
 
         def base_recon_at(cut1):
             return dwt.unpad(
-                dwt_pallas.idwt2d_dequant(qb1[None], cut1[None],
-                                          base_levels,
-                                          use_pallas=use_pallas),
+                dwt.idwt2d_dequant(qb1[None], cut1[None], base_levels),
                 orig_hw) * sb1 + minv1
 
         rec_base = base_recon_at(bcut1)
         rec_pure = base_recon_at(pcut1)
         rr1 = jnp.where(rmaxo1 > rmin1, rmaxo1 - rmin1, 1.0)
         rec_res = rec_base + (dwt.unpad(
-            dwt_pallas.idwt2d_dequant(qr1[None], rcut1[None], res_levels,
-                                      use_pallas=use_pallas),
+            dwt.idwt2d_dequant(qr1[None], rcut1[None], res_levels),
             orig_hw) * (rr1 / RES_SCALE) + rmin1)
         b_c, b_m = metrics.centered_max_abs_error(x4, rec_base)
         b_u = metrics.max_abs_error(x4, rec_base)
@@ -795,13 +724,11 @@ def _encode_core(
         # values (byte determinism; see the qbase comment).
         if det:
             spat_b = jax.lax.map(
-                lambda a: dwt_pallas.idwt2d_dequant(
-                    a[0][None], a[1][None], base_levels,
-                    use_pallas=use_pallas)[0], (qbase_ship, cut_ship))
+                lambda a: dwt.idwt2d_dequant(
+                    a[0][None], a[1][None], base_levels)[0],
+                (qbase_ship, cut_ship))
         else:
-            spat_b = dwt_pallas.idwt2d_dequant(qbase_ship, cut_ship,
-                                               base_levels,
-                                               use_pallas=use_pallas)
+            spat_b = dwt.idwt2d_dequant(qbase_ship, cut_ship, base_levels)
         recon_b = dwt.unpad(spat_b, orig_hw) \
             * (rng_ship / BASE_SCALE)[:, None, None, None] + off
         # Decoder arithmetic for the residual layer (kernels._decode_from
@@ -811,12 +738,10 @@ def _encode_core(
         rrng_out = jnp.where(rmax_out > rmin, rmax_out - rmin, 1.0)
         if det:
             spat_r = jax.lax.map(
-                lambda a: dwt_pallas.idwt2d_dequant(
-                    a[0][None], a[1][None], res_levels,
-                    use_pallas=use_pallas)[0], (qres, res_cut))
+                lambda a: dwt.idwt2d_dequant(
+                    a[0][None], a[1][None], res_levels)[0], (qres, res_cut))
         else:
-            spat_r = dwt_pallas.idwt2d_dequant(qres, res_cut, res_levels,
-                                               use_pallas=use_pallas)
+            spat_r = dwt.idwt2d_dequant(qres, res_cut, res_levels)
         res_rec = dwt.unpad(spat_r, orig_hw) \
             * (rrng_out / RES_SCALE)[:, None, None, None] \
             + rmin[:, None, None, None]
@@ -847,8 +772,7 @@ def _encode_core(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("base_levels", "res_levels", "relative_mode",
-                     "use_pallas", "scale_steps"),
+    static_argnames=("base_levels", "res_levels", "relative_mode", "scale_steps"),
 )
 def encode_batch_temporal(
     x,                       # (B, T, H, W) float32, T >= 2
@@ -858,7 +782,6 @@ def encode_batch_temporal(
     base_levels: int = 5,
     res_levels: int = 3,
     relative_mode: bool = False,
-    use_pallas: bool = True,
     scale_steps: tuple = RES_SCALE_STEPS,
 ):
     """Closed-loop temporal (predictive) encode: frame 0 is intra-coded
@@ -907,7 +830,7 @@ def encode_batch_temporal(
     out0 = _encode_core(
         x0, min0, max0, jnp.float32(0.0), target, base_quantile_target,
         base_levels=base_levels, res_levels=res_levels, relative_mode=False,
-        use_centered=False, use_pallas=use_pallas, return_internal=True)
+        use_centered=False, return_internal=True)
 
     xs = jnp.moveaxis(x[:, 1:], 1, 0)[:, :, None]  # (T-1, B, 1, H, W)
 
@@ -958,7 +881,7 @@ def encode_batch_temporal(
 
             [(cut_f, feas_f, _m)], _, _ = _coarse_fine_search(
                 q_f, DELTA_NUM_PLANES, res_levels, dmetrics,
-                [lambda m: m[0] <= target], use_pallas)
+                [lambda m: m[0] <= target])
             est_f = bitplane.estimated_code_bytes(
                 q_f.reshape(b, hp_, wp_), DELTA_NUM_PLANES)
             cut_l.append(cut_f)
@@ -1007,9 +930,7 @@ def encode_batch_temporal(
                 sb_r = (jnp.where(rmax_r > rmin1, rmax_r - rmin1, 1.0)
                         / RES_SCALE)
                 rec_r = (dwt.unpad(
-                    dwt_pallas.idwt2d_dequant(q_r[None], cut1[None],
-                                              res_levels,
-                                              use_pallas=use_pallas),
+                    dwt.idwt2d_dequant(q_r[None], cut1[None], res_levels),
                     orig_hw) * sb_r + rmin1)
                 feas_r = (metrics.max_abs_error(
                     x1[None], rec1[None] + rec_r)[0] <= targ1)
@@ -1025,7 +946,7 @@ def encode_batch_temporal(
                 (yd, x_t, recon, fv_sel, cut, any_feas_t, rmin, rrng,
                  qsel, rmax_out, target))
         else:
-            # Batched formulation (TPU): identical logic across the batch.
+            # Batched formulation (non-CPU): identical logic across the batch.
             adopted = jnp.zeros((b,), bool)
             for rr_ in RES_REFINE_RATIOS:            # coarsest first
                 fv_r = fv_sel / jnp.float32(rr_)
@@ -1035,8 +956,7 @@ def encode_batch_temporal(
                 sb_r = (jnp.where(rmax_r > rmin, rmax_r - rmin, 1.0)
                         / RES_SCALE)
                 rec_r = (dwt.unpad(
-                    dwt_pallas.idwt2d_dequant(q_r, cut, res_levels,
-                                              use_pallas=use_pallas),
+                    dwt.idwt2d_dequant(q_r, cut, res_levels),
                     orig_hw) * sb_r[:, None, None, None]
                     + rmin[:, None, None, None])
                 feas_r = (metrics.max_abs_error(x_t, recon + rec_r)
@@ -1065,12 +985,10 @@ def encode_batch_temporal(
         # frame's shipped values (byte determinism).
         if det:
             spat = jax.lax.map(
-                lambda a: dwt_pallas.idwt2d_dequant(
-                    a[0][None], a[1][None], res_levels,
-                    use_pallas=use_pallas)[0], (q_ship, cut))
+                lambda a: dwt.idwt2d_dequant(
+                    a[0][None], a[1][None], res_levels)[0], (q_ship, cut))
         else:
-            spat = dwt_pallas.idwt2d_dequant(q_ship, cut, res_levels,
-                                             use_pallas=use_pallas)
+            spat = dwt.idwt2d_dequant(q_ship, cut, res_levels)
         rng_s = jnp.where(rmax_f > rmin_s, rmax_f - rmin_s, 1.0)
         delta = (dwt.unpad(spat, orig_hw)
                  * (rng_s / RES_SCALE)[:, None, None, None]
@@ -1176,7 +1094,7 @@ def encode_batch_rate_only(
 @functools.partial(
     jax.jit,
     static_argnames=("base_levels", "res_levels", "out_hw", "has_residual",
-                     "grid_shape", "use_pallas"),
+                     "grid_shape"),
 )
 def decode_batch_sparse(
     idx,            # (cap,) int32 flat positions into the (2, B, D0, Hp, Wp)
@@ -1190,7 +1108,6 @@ def decode_batch_sparse(
     out_hw=(721, 1440),
     has_residual: bool = True,
     grid_shape=(1, 1, 736, 1440),
-    use_pallas: bool = True,
 ):
     """Batched decode from the sparse exchange rep (see core.transfer).
 
@@ -1210,14 +1127,13 @@ def decode_batch_sparse(
     return _decode_from_qflat(
         qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
         base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape,
-        use_pallas=use_pallas)
+        has_residual=has_residual, grid_shape=grid_shape)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("base_levels", "res_levels", "out_hw", "has_residual",
-                     "grid_shape", "use_pallas"),
+                     "grid_shape"),
 )
 def decode_batch_sparse_bitmap(
     bitmap,         # (2*S//8,) uint8: packed significance over the full
@@ -1230,7 +1146,6 @@ def decode_batch_sparse_bitmap(
     out_hw=(721, 1440),
     has_residual: bool = True,
     grid_shape=(1, 1, 736, 1440),
-    use_pallas: bool = True,
 ):
     """Decode-direction exchange variant: the host uploads a 1-bit-per-
     coefficient significance bitmap + the compacted values instead of a
@@ -1246,15 +1161,13 @@ def decode_batch_sparse_bitmap(
     return _decode_from_qflat(
         qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
         base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape,
-        use_pallas=use_pallas)
+        has_residual=has_residual, grid_shape=grid_shape)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("cap", "gcap", "vcap", "wcap", "base_levels",
-                     "res_levels", "out_hw", "has_residual", "grid_shape",
-                     "use_pallas"),
+                     "res_levels", "out_hw", "has_residual", "grid_shape"),
 )
 def decode_batch_sparse_bytes(
     bytes_u8,       # (2*cap + 2*vcap,) uint8: [position gaps | zigzag
@@ -1274,7 +1187,6 @@ def decode_batch_sparse_bytes(
     out_hw=(721, 1440),
     has_residual: bool = True,
     grid_shape=(1, 1, 736, 1440),
-    use_pallas: bool = True,
 ):
     """Decode-direction exchange at ~2 bytes per significant coefficient:
     byte-coded gaps + zigzag values with escape side arrays
@@ -1307,14 +1219,13 @@ def decode_batch_sparse_bytes(
     return _decode_from_qflat(
         qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
         base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape,
-        use_pallas=use_pallas)
+        has_residual=has_residual, grid_shape=grid_shape)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("cap", "base_levels", "res_levels", "out_hw",
-                     "has_residual", "grid_shape", "use_pallas"),
+                     "has_residual", "grid_shape"),
 )
 def decode_batch_sparse_nibble(
     bytes_u8,       # packed tier buffer, layout below (transfer nibble pack)
@@ -1327,7 +1238,6 @@ def decode_batch_sparse_nibble(
     out_hw=(721, 1440),
     has_residual: bool = True,
     grid_shape=(1, 1, 736, 1440),
-    use_pallas: bool = True,
 ):
     """Decode-direction exchange at ~1.3 bytes per significant coefficient:
     nibble-tiered gaps and zigzag values (transfer.nibble_pack_sparse_host).
@@ -1371,14 +1281,13 @@ def decode_batch_sparse_nibble(
     return _decode_from_qflat(
         qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
         base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape,
-        use_pallas=use_pallas)
+        has_residual=has_residual, grid_shape=grid_shape)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("cap", "base_levels", "res_levels", "out_hw",
-                     "has_residual", "grid_shape", "use_pallas"),
+                     "has_residual", "grid_shape"),
 )
 def decode_batch_sparse_nibble_fused(
     buf_u8,         # [nibble/byte tiers | ints as LE bytes | floats as LE bytes]
@@ -1389,7 +1298,6 @@ def decode_batch_sparse_nibble_fused(
     out_hw=(721, 1440),
     has_residual: bool = True,
     grid_shape=(1, 1, 736, 1440),
-    use_pallas: bool = True,
 ):
     """Single-upload variant of :func:`decode_batch_sparse_nibble`: the
     three operand arrays ride ONE uint8 buffer (int32/float32 sections
@@ -1411,7 +1319,7 @@ def decode_batch_sparse_nibble_fused(
     return decode_batch_sparse_nibble(
         bytes_u8, ints_i32, floats_f32, cap=cap, base_levels=base_levels,
         res_levels=res_levels, out_hw=out_hw, has_residual=has_residual,
-        grid_shape=grid_shape, use_pallas=use_pallas)
+        grid_shape=grid_shape)
 
 
 @functools.partial(
@@ -1476,7 +1384,7 @@ def rice_unpack_qflat(
 @functools.partial(
     jax.jit,
     static_argnames=("base_levels", "res_levels", "out_hw", "has_residual",
-                     "grid_shape", "use_pallas"),
+                     "grid_shape"),
 )
 def decode_from_qflat_program(
     qflat, base_cut, res_cut, floats,
@@ -1486,15 +1394,13 @@ def decode_from_qflat_program(
     out_hw=(721, 1440),
     has_residual: bool = True,
     grid_shape=(1, 1, 736, 1440),
-    use_pallas: bool = True,
 ):
     """Stage 2 of the blocked-Rice decode path: dense qflat -> frames.
     Compiled once per grid shape regardless of exchange size buckets."""
     return _decode_from_qflat(
         qflat, base_cut, res_cut, floats[0], floats[1], floats[2],
         floats[3], base_levels=base_levels, res_levels=res_levels,
-        out_hw=out_hw, has_residual=has_residual, grid_shape=grid_shape,
-        use_pallas=use_pallas)
+        out_hw=out_hw, has_residual=has_residual, grid_shape=grid_shape)
 
 
 @functools.partial(jax.jit, static_argnames=("t_frames",))
@@ -1522,17 +1428,17 @@ def temporal_accumulate(frames, t_frames: int):
 
 def _decode_from_qflat(
     qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
-    *, base_levels, res_levels, out_hw, has_residual, grid_shape, use_pallas,
+    *, base_levels, res_levels, out_hw, has_residual, grid_shape,
 ):
     h, w = out_hw
     b, d0, hp, wp = grid_shape
     s = b * d0 * hp * wp
 
+    @jax.named_scope("decode_reconstruct")
     def layer(qkept, cut, levels, scale, lo, hi):
         cut4 = cut[:, None, None, None]
         q = jnp.where(qkept < 0, -((-qkept) << cut4), qkept << cut4)
-        spatial = dwt_pallas.idwt2d_dequant(
-            q, cut, levels, use_pallas=use_pallas)[..., :h, :w]
+        spatial = dwt.idwt2d_dequant(q, cut, levels)[..., :h, :w]
         rng = jnp.where(hi > lo, hi - lo, 1.0)
         return spatial * (rng[:, None, None, None] / scale) + lo[:, None, None, None]
 

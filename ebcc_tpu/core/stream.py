@@ -13,7 +13,7 @@ chunk-independent containers:
     independence is what makes decode trivially parallel and any prefix of
     chunks resumable.
 
-Differences (deliberate, TPU-first): payloads are entropy-coded dense
+Differences (deliberate): payloads are entropy-coded dense
 bitplane stacks rather than J2K/SPIHT codestreams, so the header carries the
 wavelet depths, plane counts, cuts and entropy backend id instead of J2K
 lengths.  Little-endian throughout; decoder bounds-checks every field like

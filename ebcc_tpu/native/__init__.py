@@ -18,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.logging import logger
+
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR / "build"
 LIB_NAME = "libh5z_etpu.so"
@@ -69,9 +71,11 @@ def build(force: bool = False) -> Path:
     The CAB entropy coder is built with profile-guided optimization
     (measured ~10% on the bench payloads): configure+build with
     ``-fprofile-generate``, run the ``cab_train`` trainer, reconfigure
-    with ``-fprofile-use``, rebuild.  Any failure in the PGO sequence
-    falls back to a plain build (``EBCC_NO_PGO=1`` skips it outright —
-    e.g. cross-compiling release wheels where the trainer can't run)."""
+    with ``-fprofile-use``, rebuild.  A failure in the PGO sequence is
+    logged with its cause and falls back to a plain build
+    (``EBCC_NO_PGO=1`` skips it outright — e.g. cross-compiling release
+    wheels where the trainer can't run).  A failing plain build raises
+    with the compiler's output."""
     import os
 
     found = lib_path()
@@ -79,23 +83,28 @@ def build(force: bool = False) -> Path:
         return found
     BUILD_DIR.mkdir(exist_ok=True)
 
+    def _run(cmd, **kw):
+        r = subprocess.run(cmd, cwd=BUILD_DIR, capture_output=True,
+                           text=True, **kw)
+        if r.returncode:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({r.returncode}):\n"
+                               f"{r.stdout[-4000:]}{r.stderr[-4000:]}")
+
     def _cmake(pgo: str):
-        subprocess.run(
-            ["cmake", "-G", "Ninja", "-DCMAKE_BUILD_TYPE=Release",
-             f"-DETPU_PGO={pgo}", ".."],
-            cwd=BUILD_DIR, check=True, capture_output=True)
-        subprocess.run(["ninja"], cwd=BUILD_DIR, check=True,
-                       capture_output=True)
+        _run(["cmake", "-G", "Ninja", "-DCMAKE_BUILD_TYPE=Release",
+              f"-DETPU_PGO={pgo}", ".."])
+        _run(["ninja"])
 
     if os.environ.get("EBCC_NO_PGO"):
         _cmake("OFF")
     else:
         try:
             _cmake("generate")
-            subprocess.run([str(BUILD_DIR / "cab_train")], cwd=BUILD_DIR,
-                           check=True, capture_output=True, timeout=300)
+            _run([str(BUILD_DIR / "cab_train")], timeout=300)
             _cmake("use")
-        except Exception:
+        except (RuntimeError, subprocess.TimeoutExpired) as e:
+            logger.warning("native PGO build failed, building without "
+                           "PGO: %s", e)
             _cmake("OFF")
     p = BUILD_DIR / LIB_NAME
     if not p.exists():
@@ -122,11 +131,11 @@ def load(auto_build: bool = True):
             raise FileNotFoundError(f"{LIB_NAME} not built")
         p = build()
     lib = ctypes.CDLL(str(p))
-    if not hasattr(lib, "etpu_sparse_to_planes"):  # newest symbol
+    if not hasattr(lib, "etpu_zstd_compress"):  # newest symbol
         if Path(p).parent == BUILD_DIR and auto_build:
             p = build(force=True)
             lib = ctypes.CDLL(str(p))
-        if not hasattr(lib, "etpu_sparse_to_planes"):
+        if not hasattr(lib, "etpu_zstd_compress"):
             raise RuntimeError(
                 f"native library at {p} is too old for this package "
                 "version; rebuild it or point EBCC_FILTER_PATH/DIR at a "
@@ -146,6 +155,15 @@ def load(auto_build: bool = True):
     lib.etpu_encode_chunked.argtypes = lib.etpu_encode.argtypes
     lib.etpu_free.argtypes = [ctypes.c_void_p]
     lib.etpu_version.restype = ctypes.c_char_p
+    lib.etpu_zstd_compress.restype = ctypes.c_size_t
+    lib.etpu_zstd_compress.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte))]
+    lib.etpu_zstd_decompress.restype = ctypes.c_size_t
+    lib.etpu_zstd_decompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        np.ctypeslib.ndpointer(ctypes.c_ubyte, flags="C_CONTIGUOUS"),
+        ctypes.c_size_t]
     lib.etpu_cab_compress.restype = ctypes.c_size_t
     lib.etpu_cab_compress.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
@@ -278,6 +296,33 @@ def native_decode(blob: bytes) -> np.ndarray:
     finally:
         lib.etpu_free(out)
     return arr
+
+
+def zstd_compress(payload: bytes, level: int) -> bytes:
+    """Checksummed zstd frame (entropy backend id 1) through the system
+    libzstd the native library links."""
+    lib = load()
+    out = ctypes.POINTER(ctypes.c_ubyte)()
+    n = lib.etpu_zstd_compress(payload, len(payload), level,
+                               ctypes.byref(out))
+    if n == 0:
+        raise RuntimeError("zstd compress failed")
+    try:
+        return bytes(ctypes.cast(out, ctypes.POINTER(ctypes.c_ubyte * n))
+                     .contents)
+    finally:
+        lib.etpu_free(out)
+
+
+def zstd_decompress(comp: bytes, max_size: int) -> bytes:
+    """Inverse of :func:`zstd_compress`; ``max_size`` bounds the content
+    size, as ``zstandard``'s ``max_output_size`` does."""
+    lib = load()
+    buf = np.zeros(max_size, np.uint8)
+    n = lib.etpu_zstd_decompress(comp, len(comp), buf, max_size)
+    if n == ctypes.c_size_t(-1).value:
+        raise ValueError("corrupt entropy payload: zstd frame")
+    return buf[:n].tobytes()
 
 
 def cab_compress(payload: bytes, kept: int, d0: int, hp: int, wp: int,

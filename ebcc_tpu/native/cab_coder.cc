@@ -3,7 +3,7 @@
  * Role parity: the reference's compression ratio rests on two strong
  * entropy coders — OpenJPEG's EBCOT/MQ coder inside the J2K base layer and
  * SPIHT's zerotree structure + zstd-22 for the residual (reference
- * src/ebcc_codec.c:105-180,816).  The TPU build's dense-bitplane payloads
+ * src/ebcc_codec.c:105-180,816).  This codec's dense-bitplane payloads
  * compress well under zstd but leave the neighbor correlation of wavelet
  * significance on the table (the CR risk called out in the survey).  This
  * coder recovers it with the textbook EBCOT-family model:

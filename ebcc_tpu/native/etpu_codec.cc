@@ -11,7 +11,11 @@
 
 #include "etpu_codec.h"
 
+#if __has_include(<zstd.h>)
 #include <zstd.h>
+#else
+#include "zstd_decls.h"
+#endif
 
 extern "C" size_t etpu_cab2_compress(const uint8_t *, size_t, int, int, int,
                                      int, int, uint8_t **);
@@ -398,6 +402,27 @@ bool zstd_pack(const uint8_t *src, size_t n, int level,
 bool zstd_unpack(const uint8_t *src, size_t n, uint8_t *dst, size_t dst_n) {
   const size_t r = ZSTD_decompress(dst, dst_n, src, n);
   return !ZSTD_isError(r) && r == dst_n;
+}
+
+/* Entropy id 1 for callers without a zstd binding of their own (the Python
+ * codec when the zstandard package is absent): checksummed frames, byte
+ * format identical to every other id-1 writer. */
+extern "C" size_t etpu_zstd_compress(const uint8_t *src, size_t n, int level,
+                                     uint8_t **out) {
+  std::vector<uint8_t> c;
+  if (!zstd_pack(src, n, level, &c)) return 0;
+  *out = (uint8_t *)std::malloc(c.size());
+  if (!*out) return 0;
+  std::memcpy(*out, c.data(), c.size());
+  return c.size();
+}
+
+/* dst_n is an upper bound on the content size.  Returns the decompressed
+ * size, or (size_t)-1 on a corrupt frame or one larger than dst_n. */
+extern "C" size_t etpu_zstd_decompress(const uint8_t *src, size_t n,
+                                       uint8_t *dst, size_t dst_n) {
+  const size_t r = ZSTD_decompress(dst, dst_n, src, n);
+  return ZSTD_isError(r) ? (size_t)-1 : r;
 }
 
 /* ------------------------------------------------------------------ */

@@ -4,10 +4,10 @@
  * Role parity: the reference ships its codec as a C library consumed by an
  * HDF5 filter plugin, Zarr via ctypes, and CDO (reference src/ebcc_codec.h
  * API: ebcc_encode/ebcc_decode/ebcc_encode_chunking/ebcc_decode_chunking/
- * free_buffer).  This library provides the same integration surface for the
- * TPU build's format: storage-stack consumers (h5py/netCDF/CDO through the
+ * free_buffer).  This library provides the same integration surface for this
+ * codec's format: storage-stack consumers (h5py/netCDF/CDO through the
  * filter plugin, or direct linking) can encode and decode ETPU streams with
- * zero Python/JAX dependency.  The TPU path remains the high-throughput
+ * zero Python/JAX dependency.  The device path remains the high-throughput
  * encoder; this native path trades speed for universal embeddability, like
  * the reference codec itself (serial, per-chunk).
  *

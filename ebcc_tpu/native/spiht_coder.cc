@@ -2,7 +2,7 @@
 //
 // Format-compatibility mirror of the reference residual coder
 // (reference src/spiht/spiht_re.c, dwt.h, bitio.h, ml.h), written fresh in
-// C++.  This exists so the TPU-native framework can read (and write)
+// C++.  This exists so the framework can read (and write)
 // bitstreams produced by the original EBCC codec; it is NOT on the ETPU hot
 // path (the ETPU format uses the batched bitplane coder in core/kernels.py
 // / etpu_codec.cc instead).

@@ -3,7 +3,7 @@
 Role parity: replaces the reference's two entropy-oriented coefficient
 representations — SPIHT's bit-serial set-partitioned stream (reference
 ``src/spiht/spiht_re.c:208-430``) and OpenJPEG's EBCOT code-blocks — with a
-TPU-friendly *dense fixed-layout* bitplane code:
+vector-friendly *dense fixed-layout* bitplane code:
 
   * Coefficients are floor-quantized toward zero (parity with ``normalize``,
     reference ``src/spiht/dwt.h:355-368``), giving exact integer bitplane

@@ -1,4 +1,4 @@
-"""Batched multi-level CDF 9/7 wavelet transform (lifting scheme), TPU-native.
+"""Batched multi-level CDF 9/7 wavelet transform (lifting scheme).
 
 Role parity: this is the transform engine behind BOTH layers of the codec,
 re-expressing the reference's two separate DWTs — OpenJPEG's internal 9/7
@@ -11,8 +11,8 @@ Architecture notes (why this is NOT a port):
     loops (``dwt_row``/``dwt_col``, dwt.h:87-194) and a hand-unrolled 8-wide
     inverse (``idwt_col8``, dwt.h:196-272).  Here every lifting step is a
     whole-array vector op over ``(..., H, W)`` batches: the batch dimension
-    and the orthogonal spatial dimension are both vectorized by XLA onto the
-    VPU, and frames are independent so the batch axis can be sharded across a
+    and the orthogonal spatial dimension are both vectorized by XLA, and
+    frames are independent so the batch axis can be sharded across a
     device mesh with no halo exchange.
   * Boundary handling: the lifting steps use edge replication on the opposite
     parity array, which is algebraically identical to whole-point symmetric
@@ -33,6 +33,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from . import bitplane
 
 # Canonical CDF 9/7 lifting coefficients (Daubechies & Sweldens 1998).
 ALPHA = -1.586134342
@@ -133,6 +135,26 @@ def idwt2d(y, levels: int):
                 y, block, (0,) * (y.ndim - 2) + (0, 0)
             )
     return y
+
+
+def dwt2d_quantize(x, levels: int):
+    """Forward DWT + floor quantization: ``(..., Hp, Wp)`` f32 -> int32
+    coefficients.  XLA fuses the quantization into the last lifting pass."""
+    return bitplane.quantize_floor(dwt2d(x, levels))
+
+
+def idwt2d_dequant(q, cut, levels: int):
+    """Dequantize at a per-chunk cut + inverse DWT.
+
+    q: (B, D0, Hp, Wp) int32; cut: (B,) int32 (or scalar).  This is the
+    reconstruction arithmetic every decoder mirrors, and the one the
+    encoder's cut searches verify the bound with.
+    """
+    cut = jnp.atleast_1d(jnp.asarray(cut, jnp.int32))
+    if cut.shape[0] != q.shape[0]:
+        cut = jnp.broadcast_to(cut, (q.shape[0],))
+    rec = bitplane.reconstruct_at_cut(q, cut[:, None, None, None])
+    return idwt2d(rec, levels)
 
 
 def pad_to_multiple(x, multiple: int):

@@ -2,7 +2,7 @@
 
 Role parity: the reference has NO parallelism of any kind (SURVEY §2.9 — a
 single-threaded per-chunk serial codec).  This package supplies the
-first-class TPU-native equivalents (BASELINE.json north-star):
+first-class equivalents (BASELINE.json north-star):
 
   * frame/chunk data parallelism over a ``jax.sharding.Mesh`` — chunks are
     embarrassingly parallel (the reference's chunk loop shares zero state

@@ -1,10 +1,10 @@
 """Multi-host deployment glue.
 
 Role parity: the reference has no distributed backend at all (SURVEY §2.9);
-its multi-file practice is "run many processes".  The TPU build's multi-host
+its multi-file practice is "run many processes".  This codec's multi-host
 story (BASELINE config 5: year-scale archives over N hosts):
 
-  * ``initialize()`` wraps ``jax.distributed.initialize`` (GCE/TPU-pod
+  * ``initialize()`` wraps ``jax.distributed.initialize`` (cluster
     autodetection or explicit coordinator) and builds the global
     (hosts, chips) mesh.
   * Chunk ownership is a pure function of (chunk index, process) —

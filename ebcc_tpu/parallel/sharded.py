@@ -101,7 +101,7 @@ def encode_chunked_sharded(data: np.ndarray, config: CodecConfig,
 
     backend = entropy.backend_id(chunk_cfg)
     error_mode = config.residual_mode != RESIDUAL_NONE
-    out = _codec.encode_batch_device(xb, chunk_cfg, opts, use_pallas=False)
+    out = _codec.encode_batch_device(xb, chunk_cfg, opts)
     out_np = _codec._fetch_encode_outputs(out, error_mode)
     streams = _codec._assemble_batch(
         out_np, chunk_cfg, opts, n_frames, h, w, backend, error_mode,

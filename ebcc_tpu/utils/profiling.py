@@ -5,7 +5,7 @@ loops (ebcc_codec.c:554-803) — our analog is the error-vs-cut curve logged
 at TRACE by the host orchestration — and (b) an ``ENABLE_PERF`` build
 option wrapping ``ebcc_encode`` in prctl(PR_TASK_PERF_EVENTS_*) so an
 external ``perf stat`` counts only codec work (CMakeLists.txt:21,
-ebcc_codec.c:8-10).  The TPU analog of (b) is the JAX profiler: wrap any
+ebcc_codec.c:8-10).  The analog of (b) here is the JAX profiler: wrap any
 codec call in :func:`trace` and inspect the trace in TensorBoard/XProf.
 
 Enable implicitly with ``EBCC_PROFILE_DIR=/path`` — every encode/decode

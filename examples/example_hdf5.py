@@ -50,7 +50,7 @@ def main():
         dset = f.create_dataset("via_plugin", shape=data.shape, **filt)
         dset[...] = data
 
-    # Route 2: plugin-free opaque dataset (TPU codec, stock h5py).
+    # Route 2: plugin-free opaque dataset (device codec, stock h5py).
     config = CodecConfig(dims=data.shape, base_cr=30,
                          residual_mode=RESIDUAL_MAX_ERROR, error=max_error,
                          chunk_dims=(1, 721, 1440))

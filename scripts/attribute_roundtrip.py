@@ -2,7 +2,7 @@
 
 Runs the exact bench roundtrip with EBCC_TIMING=2 accumulation on, then
 prints wall per rep, the link-leg floors implied by the measured link
-bandwidths, and the per-stage host/link work totals.  Use on the real TPU
+bandwidths, and the per-stage host/link work totals.  Run on the GPU
 (default env, ONE process).
 """
 

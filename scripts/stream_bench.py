@@ -9,7 +9,7 @@ Reports streamed wall/pts-per-s next to the same data encoded fully
 in-memory (``encode_chunked``): their ratio is the I/O-overlap efficiency
 (1.0 = the disk reads are fully hidden under the encode pipeline).
 
-Run on the real TPU (default env, one process):
+Run on the GPU (default env, one process):
     python scripts/stream_bench.py [--levels 37] [--hours 24]
 """
 

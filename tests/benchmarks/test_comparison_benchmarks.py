@@ -3,7 +3,7 @@
 Parity role: reference tests/benchmarks/test_comparison_benchmarks.py
 compares EBCC against SPERR/SZ/SZ3 through hdf5plugin/enstools (env-gated
 there; those codecs are not in this image, so the suite gates the same
-way).  Always-on comparisons here: the batched TPU codec vs (a) this
+way).  Always-on comparisons here: the batched device codec vs (a) this
 package's own native serial C++ codec — the architectural stand-in for the
 reference's serial C codec — and (b) lossless zstd, which any error-bounded
 codec must beat at nontrivial bounds.
@@ -33,13 +33,13 @@ def test_tpu_vs_native_serial_cr(native, base_test_data):
     data = np.ascontiguousarray(base_test_data[:256, :256])[None]
     config = CodecConfig(dims=data.shape, base_cr=30,
                          residual_mode=RESIDUAL_MAX_ERROR, error=0.1)
-    blob_tpu = encode(data, config)
+    blob_dev = encode(data, config)
     blob_nat = native.native_encode(data, config)
-    for blob in (blob_tpu, blob_nat):
+    for blob in (blob_dev, blob_nat):
         out = decode(blob).reshape(data.shape)
         assert np.abs(out - data).max() <= 0.1
-    ratio = len(blob_nat) / len(blob_tpu)
-    assert 0.8 < ratio < 1.25, (len(blob_tpu), len(blob_nat))
+    ratio = len(blob_nat) / len(blob_dev)
+    assert 0.8 < ratio < 1.25, (len(blob_dev), len(blob_nat))
 
 
 def test_batched_vs_serial_throughput_sane(native, base_test_data):
@@ -69,7 +69,8 @@ def test_batched_vs_serial_throughput_sane(native, base_test_data):
     t_serial = best_of(lambda: native.native_encode_chunked(frames, config))
     # The native serial codec is itself heavily optimized (warm-started cut
     # searches run ~12 Mpts/s on this box); 8x is the consistency floor for
-    # the XLA:CPU batched path, which exists for TPUs, not this comparison.
+    # the XLA:CPU batched path, which exists for accelerators, not this
+    # comparison.
     assert t_batched < t_serial * 8, (t_batched, t_serial)
 
 

@@ -33,8 +33,7 @@ class TestCompressionPerformance:
 
     def test_throughput_floor(self, base_test_data):
         """Parity: >1 MB/s compression floor on a 512^2 frame including the
-        searches (tb:119-123) — generous on CPU; the TPU path is orders of
-        magnitude faster."""
+        searches (tb:119-123) — generous on CPU."""
         data = _frame(base_test_data, 512)
         config = CodecConfig(dims=data.shape, base_cr=30,
                              residual_mode=RESIDUAL_MAX_ERROR, error=0.1)

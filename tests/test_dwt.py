@@ -8,7 +8,7 @@ import jax.numpy as jnp
 
 jnp = pytest.importorskip("jax.numpy")
 
-from ebcc_tpu.ops import bitplane, dwt, dwt_pallas
+from ebcc_tpu.ops import bitplane, dwt
 
 
 @pytest.mark.parametrize("shape,levels", [
@@ -156,12 +156,11 @@ class TestCoarseFineSearch:
     def _dense_reference(self, q, num_planes, levels, metrics_fn, crit):
         import jax
 
-        from ebcc_tpu.ops import dwt_pallas
         b = q.shape[0]
 
         def body(cut):
-            spatial = dwt_pallas.idwt2d_dequant(
-                q, jnp.broadcast_to(cut, (b,)), levels, use_pallas=False)
+            spatial = dwt.idwt2d_dequant(
+                q, jnp.broadcast_to(cut, (b,)), levels)
             return metrics_fn(spatial, cut)
 
         stacked = jax.lax.map(body, jnp.arange(num_planes, dtype=jnp.int32))
@@ -189,7 +188,7 @@ class TestCoarseFineSearch:
 
         crit = lambda m: m[0] <= targets
         [(cut, anyf, (maxe,))], _, _ = _coarse_fine_search(
-            q, num_planes, levels, metrics, [crit], use_pallas=False)
+            q, num_planes, levels, metrics, [crit])
         ref_cut, ref_any = self._dense_reference(
             q, num_planes, levels, metrics, crit)
         np.testing.assert_array_equal(np.asarray(cut), ref_cut)
@@ -215,14 +214,11 @@ class TestCoarseFineSearch:
 
         crit = lambda m: m[0] <= jnp.float32(-1.0)  # impossible
         [(cut, anyf, (maxe,))], _, _ = _coarse_fine_search(
-            q, num_planes, levels, metrics, [crit], use_pallas=False)
+            q, num_planes, levels, metrics, [crit])
         assert not np.asarray(anyf).any()
         np.testing.assert_array_equal(np.asarray(cut), 0)
         # metrics reported at cut 0 (the finest), not at a coarse row
-        spatial0 = None
-        from ebcc_tpu.ops import dwt_pallas
-        spatial0 = dwt_pallas.idwt2d_dequant(
-            q, jnp.zeros(2, jnp.int32), levels, use_pallas=False)
+        spatial0 = dwt.idwt2d_dequant(q, jnp.zeros(2, jnp.int32), levels)
         ref = np.abs(x - np.asarray(spatial0)).max(axis=(1, 2, 3))
         np.testing.assert_allclose(np.asarray(maxe), ref, rtol=1e-6)
 
@@ -259,57 +255,30 @@ class TestMetrics:
         assert not bool(metrics.check_finite(x))
 
 
-class TestCurveStatsKernel:
-    """Fused error-vs-cut statistics kernel (ops.dwt_pallas.
-    curve_stats_pallas, interpret mode here; Mosaic lowering is
-    TPU-only).  Contract: per (cut, frame) rows [sum_err, max_err,
-    min_err, count(|err| > target)] over the valid region must equal the
-    unfused dequant -> iDWT -> masked reductions pipeline."""
+class TestQuantizeDequantHelpers:
+    """ops.dwt.dwt2d_quantize / idwt2d_dequant — the fused forms every
+    encode scan and decode program calls — against the unfused
+    transform + bitplane primitives, per chunk."""
 
-    def _reference(self, q, t, scale, off, target, levels, cuts, hw):
-        from ebcc_tpu.ops import bitplane as bp
-        from ebcc_tpu.ops import dwt as dwt_ops
-
-        b, d0, hp, wp = q.shape
-        h, w = hw
-        rows = []
-        for cut in cuts:
-            rec = np.asarray(dwt_ops.idwt2d(
-                bp.reconstruct_at_cut(
-                    jnp.asarray(q),
-                    jnp.full((b, 1, 1, 1), cut, jnp.int32)), levels))
-            err = (t - (rec * scale[:, None, None, None]
-                        + off[:, None, None, None]))[:, :, :h, :w]
-            rows.append(np.stack([
-                err.sum(axis=(2, 3)),
-                err.max(axis=(2, 3)),
-                err.min(axis=(2, 3)),
-                (np.abs(err) > target[:, None, None, None]).sum(axis=(2, 3))
-                .astype(np.float32),
-            ], axis=-1))
-        return np.stack(rows)
-
-    @pytest.mark.parametrize("shape,levels,hw", [
-        ((2, 1, 64, 64), 3, (50, 60)),
-        ((1, 2, 32, 64), 2, (32, 64)),
+    @pytest.mark.parametrize("shape,levels,cuts", [
+        ((2, 1, 64, 64), 3, (0, 5)),
+        ((3, 2, 32, 64), 2, (7, 1, 0)),
     ])
-    def test_matches_unfused(self, shape, levels, hw):
+    def test_matches_unfused(self, shape, levels, cuts):
         rng = np.random.default_rng(3)
-        b, d0, hp, wp = shape
-        q = rng.integers(-5000, 5000, size=shape).astype(np.int32)
-        t = rng.normal(size=shape).astype(np.float32) * 50
-        scale = rng.uniform(0.5, 2.0, b).astype(np.float32)
-        off = rng.uniform(-3, 3, b).astype(np.float32)
-        target = rng.uniform(5, 40, b).astype(np.float32)
-        cuts = tuple(range(12, -1, -3))
-        got = np.asarray(dwt_pallas.curve_stats_pallas(
-            jnp.asarray(q), jnp.asarray(t), scale, off, target,
-            levels=levels, cut_grid=cuts, valid_hw=hw, interpret=True))
-        want = self._reference(q, t.astype(np.float32), scale, off, target,
-                               levels, cuts, hw)
-        assert got.shape == (len(cuts), b, d0, 4)
-        np.testing.assert_allclose(got[..., 0], want[..., 0],
-                                   rtol=1e-5, atol=1e-2)   # sum: order ulps
-        np.testing.assert_allclose(got[..., 1], want[..., 1], rtol=1e-6)
-        np.testing.assert_allclose(got[..., 2], want[..., 2], rtol=1e-6)
-        np.testing.assert_array_equal(got[..., 3], want[..., 3])
+        x = (rng.normal(size=shape) * 3000).astype(np.float32)
+        q = dwt.dwt2d_quantize(jnp.asarray(x), levels)
+        q_ref = np.trunc(np.asarray(dwt.dwt2d(jnp.asarray(x), levels)))
+        assert q.dtype == jnp.int32
+        np.testing.assert_array_equal(np.asarray(q), q_ref.astype(np.int32))
+
+        got = np.asarray(dwt.idwt2d_dequant(q, jnp.asarray(cuts), levels))
+        for i, cut in enumerate(cuts):
+            rec = bitplane.reconstruct_at_cut(q[i:i + 1], jnp.int32(cut))
+            want = np.asarray(dwt.idwt2d(rec, levels))[0]
+            np.testing.assert_array_equal(got[i], want)
+        # a scalar cut broadcasts over the batch
+        one = np.asarray(dwt.idwt2d_dequant(q, cuts[0], levels))
+        np.testing.assert_array_equal(
+            one[0], np.asarray(dwt.idwt2d_dequant(
+                q[:1], jnp.asarray([cuts[0]]), levels))[0])

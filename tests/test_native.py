@@ -436,3 +436,58 @@ class TestRiceExchange:
         blob = encode(small_frame[None], config)
         out = decode(blob).reshape(1, 64, 64)
         assert np.abs(out - small_frame[None]).max() <= 0.1
+
+
+class TestZstdWithoutPackage:
+    """Entropy id 1 when the ``zstandard`` package is absent: the native
+    library's libzstd serves it, and with no coder at all the request
+    raises instead of writing STORE streams."""
+
+    def test_native_serves_zstd(self, native, monkeypatch, small_frame):
+        import zstandard
+
+        from ebcc_tpu.core import entropy, routing, stream
+
+        monkeypatch.setattr(entropy, "_zstd", None)
+        monkeypatch.setenv("EBCC_ENCODE_BACKEND", "device")
+        monkeypatch.setenv("EBCC_DECODE_BACKEND", "device")
+        routing.reset_cache()
+        payload = np.random.default_rng(1).integers(
+            0, 3, 50_000).astype(np.uint8).tobytes()
+        comp = entropy.compress(payload, entropy.BACKEND_ZSTD, 9)
+        assert len(comp) < len(payload)
+        # same frame format as the package writes: either side decodes it
+        assert zstandard.ZstdDecompressor().decompress(comp) == payload
+        assert entropy.decompress(comp, entropy.BACKEND_ZSTD,
+                                  len(payload)) == payload
+        # orig_size is an upper bound (partial-plane payloads pass one)
+        assert entropy.decompress(comp, entropy.BACKEND_ZSTD,
+                                  len(payload) + 999) == payload
+        bad = bytearray(comp)
+        bad[len(bad) // 2] ^= 0xFF
+        with pytest.raises(ValueError):
+            entropy.decompress(bytes(bad), entropy.BACKEND_ZSTD,
+                               len(payload))
+        cfg = CodecConfig(dims=(1, 64, 64), base_cr=20,
+                          residual_mode=RESIDUAL_MAX_ERROR, error=0.1)
+        blob = encode(small_frame, cfg)
+        assert stream.FrameHeader.unpack(blob).entropy == 1
+        assert np.abs(decode(blob).reshape(64, 64) - small_frame).max() <= 0.1
+        # rate mode ships partial-plane payloads, sized only by a bound
+        rblob = encode(small_frame, CodecConfig(
+            dims=(1, 64, 64), base_cr=20, residual_mode=RESIDUAL_NONE))
+        assert len(rblob) <= 64 * 64 * 4 / 20
+        assert np.isfinite(decode(rblob)).all()
+
+    def test_zstd_without_coder_raises(self, monkeypatch):
+        from ebcc_tpu.core import entropy
+
+        def no_library(*a, **k):
+            raise FileNotFoundError("libh5z_etpu.so not built")
+
+        monkeypatch.setattr(entropy, "_zstd", None)
+        monkeypatch.setattr(native_mod, "load", no_library)
+        with pytest.raises(FileNotFoundError):
+            entropy.compress(b"\0" * 4096, entropy.BACKEND_ZSTD, 9)
+        assert entropy.backend_id(CodecConfig(dims=(1, 8, 8))) == \
+            entropy.BACKEND_ZSTD

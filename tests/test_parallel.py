@@ -125,8 +125,7 @@ class TestScalingGates:
         shard_rows = [s.data.shape[0] for s in xb.addressable_shards]
         assert shard_rows == [1] * nd
         out = codec_mod.encode_batch_device(
-            xb, config.per_chunk((1, 64, 64)), EncodeOptions.from_env(),
-            use_pallas=False)
+            xb, config.per_chunk((1, 64, 64)), EncodeOptions.from_env())
         # the dominant output (the significance bitmap stack, batch axis 1)
         # must come back sharded over the mesh, not replicated
         sig = out["sig_comb"]
@@ -201,14 +200,14 @@ class TestScalingGates:
                 [v for v in out.values() if hasattr(v, "block_until_ready")])
 
         run(x_sh)           # warm/compile
-        run(x_one, use_pallas=False)
+        run(x_one)
         t_sh = t_one = float("inf")
         for _ in range(3):
             t0 = time.perf_counter()
             run(x_sh)
             t_sh = min(t_sh, time.perf_counter() - t0)
             t0 = time.perf_counter()
-            run(x_one, use_pallas=False)
+            run(x_one)
             t_one = min(t_one, time.perf_counter() - t0)
         # per-device efficiency = total-throughput ratio (equal work)
         assert t_one / t_sh >= 0.6, (t_sh, t_one)

@@ -84,3 +84,17 @@ def test_slow_link_end_to_end_roundtrip(clean_routing, small_frame):
     blob = codec.encode(small_frame, cfg)
     out = codec.decode(blob)
     assert np.abs(out.reshape(64, 64) - small_frame).max() <= 0.1
+
+
+def test_failed_link_probe_raises(clean_routing):
+    """A probe that cannot reach the device is an error, never a silent
+    route of every host-destined call to the host codec."""
+    import jax
+
+    def broken(*a, **k):
+        raise RuntimeError("device unreachable")
+
+    clean_routing.setattr(jax, "device_put", broken)
+    with pytest.raises(RuntimeError, match="device unreachable"):
+        routing.link_mbps()
+    assert "link" not in routing._cache

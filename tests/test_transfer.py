@@ -98,8 +98,7 @@ def test_decode_bitmap_variant_matches_index_variant():
                np.zeros(b, np.float32), np.ones(b, np.float32),
                np.zeros(b, np.float32), np.ones(b, np.float32)]
     kw = dict(base_levels=3, res_levels=3, out_hw=(64, 64),
-              has_residual=True, grid_shape=(b, d0, hp, wp),
-              use_pallas=False)
+              has_residual=True, grid_shape=(b, d0, hp, wp))
     idx_up = transfer.pad_index(idx.astype(np.int32), cap, -1)
     a = np.asarray(kernels.decode_batch_sparse(idx_up, vals_up, *scalars,
                                                **kw))
@@ -291,8 +290,7 @@ def test_scatter_last_coefficient_not_clobbered():
                np.zeros(b, np.float32), np.ones(b, np.float32),
                np.zeros(b, np.float32), np.ones(b, np.float32)]
     kw = dict(base_levels=3, res_levels=3, out_hw=(32, 32),
-              has_residual=True, grid_shape=(b, d0, hp, wp),
-              use_pallas=False)
+              has_residual=True, grid_shape=(b, d0, hp, wp))
     cap = transfer.bucket_count(idx.size)  # cap >> nnz: padding present
 
     # reference: bitmap kernel (immune to the wrap by construction)
